@@ -8,7 +8,7 @@ p-multigrid needs degree >= 2 — its coarse space IS degree 1).  This module
 closes that gap the classical way: a smoothed-aggregation AMG hierarchy
 (Vanek/Mandel/Brezina 1996) built ONCE on the host from the assembled
 sparse operator, then applied entirely on device as ELL gather arithmetic —
-the TPU-native replacement for the PETSc/MUMPS direct factorization every
+the on-device replacement for the PETSc/MUMPS direct factorization every
 reference demo uses (``demo/weak-dirichlet/flower/main.py:162-182``).
 
 Design mirrors the lattice preconditioner's splitting: AMG cycles the BULK
@@ -34,6 +34,8 @@ from typing import Dict, List, Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+from .ops import HIGHEST
 
 Array = jnp.ndarray
 
@@ -163,7 +165,9 @@ class AMG:
     def _cycle(self, k: int, b: Array) -> Array:
         lvl = self.levels[k]
         if k == len(self.levels) - 1:
-            return self.coarse_inv.astype(b.dtype) @ b
+            return jnp.matmul(
+                self.coarse_inv.astype(b.dtype), b, precision=HIGHEST
+            )
         x = self._smooth(lvl, jnp.zeros_like(b), b, self.pre_smooth)
         r = b - self._mv(lvl, x)
         rc = self._ell_apply(lvl.r_cols, lvl.r_vals, r, b.dtype)

@@ -10,9 +10,8 @@ localization (``src/phifem/mesh_scripts.py:107-110``).
 
 Everything here is *static tabulation*: basis values/gradients/hessians at a
 fixed set of reference points are computed once (float64 numpy) and become
-compile-time constants inside jitted assembly kernels — exactly the shape of
-data the MXU wants (small dense matrices contracted against batched cell
-data).
+compile-time constants inside jitted assembly kernels (small dense
+matrices contracted against batched cell data).
 
 Basis construction: monomial Vandermonde inverse on the equispaced node
 lattice.  Node ordering (local) is the lattice enumeration (i fastest):

@@ -15,7 +15,7 @@ Reimplements the reference's detection machinery in vectorized form:
   all-zero degenerate case the reference forces to 0.5 (cut) with a warning
   (``mesh_scripts.py:121-133``).  We classify signs directly: it is the same
   predicate without the float division, and it vectorizes to three
-  reductions per cell on the VPU.
+  elementwise reductions per cell.
 
 The level set may be a callable ``phi(x: (n,2)) -> (n,)`` (the reference's
 "UFL expression" path, ``tests/test_compute_meshtags.py:160-161``) or a
@@ -197,9 +197,8 @@ def sign_flags(values: Array) -> Tuple[Array, Array]:
     return jnp.any(values > 0.0, axis=-1), jnp.any(values < 0.0, axis=-1)
 
 
-# (ncells, npts) detection layouts pad the npts minor dim 128x on TPU;
-# below this cell count the padded pair stays ~2 GB and the historical
-# batched arithmetic (bit-pinned by parity tests) is kept
+# below this cell count the historical batched (ncells, npts) arithmetic
+# (bit-pinned by parity tests) is kept
 _BATCHED_CELL_LIMIT = 2**21
 
 
@@ -214,11 +213,9 @@ def sign_flags_on_cells(
     between program shapes, and knife-edge detection points — phi
     mathematically 0 — flip with it, so the small-grid arithmetic must
     stay byte-identical).  Above the limit the flags are accumulated ONE
-    DETECTION POINT AT A TIME with 1-D buffers: TPU tiles the minor
-    dimension to 128, so the has_pos/has_neg pair fused at ``(ncells,
-    npts~3)`` pads 42x — at n=3200 (20.48M cells) that is a 21 GB
-    ``f32[2,20480000,3]`` HBM allocation and the tag-kernel compile OOMs
-    (seen in BENCH round 3).  Large grids have no bit-parity oracle
+    DETECTION POINT AT A TIME with 1-D buffers, so no ``(ncells, npts)``
+    intermediate is materialized at the 20M-cell scale (n=3200).  Large
+    grids have no bit-parity oracle
     (the reference cannot run at that scale), so the contraction
     difference is immaterial there."""
     if cells is None:

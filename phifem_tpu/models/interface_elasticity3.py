@@ -28,7 +28,7 @@ Bilinear form (the 2D scheme's terms, reference line refs in
     + int_{ds(100)} (yi . n) . vi   (Gamma_h one-sided from {1,2})
     + int_{ds(101)} (yo . n) . vo   (one-sided from {2,3} toward {1})
 
-TPU-native structure (mirrors :mod:`neumann3`): per-side bulk stiffness
+Structure (mirrors :mod:`neumann3`): per-side bulk stiffness
 is a cell-masked uniform (24, 24) block vertex stencil; ghost faces are
 static (48, 48) per-axis jump matrices; one-sided flux terms are static
 (8, 8) face-mass couplings between a u channel and its normal flux

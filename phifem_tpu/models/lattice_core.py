@@ -614,9 +614,8 @@ def make_interface_apply(
             )
         else:
             # fixed-sweep fori_loop BiCGStab (mg._band_bicgstab): bounded
-            # work, no nested-while condition machinery — the scipy-style
-            # loop was a major contributor to the remote-compile wedges
-            # (bench.py S5; same class as the 2D band solve)
+            # work, no nested-while condition machinery (same class as the
+            # 2D band solve)
             from ..mg import _band_bicgstab
 
             corr = _band_bicgstab(band_mv, band_ras, rb, n_sweeps)

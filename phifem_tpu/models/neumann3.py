@@ -18,7 +18,7 @@ Fields: u (Q1), y ~ -grad u (Q1 3-vector), p (DG0 auxiliary):
     + pen int_{dx(2)} [ -h^-2 u_N |grad phi| (z.grad phi + h^-1 q phi)
                       + f (div z + v) ]
 
-TPU-native structure (mirrors :mod:`weak_dirichlet3`): the bulk
+Structure (mirrors :mod:`weak_dirichlet3`): the bulk
 (grad-grad + mass) is a cell-masked uniform 8-node stencil; the one-sided
 Gamma_h flux couples u-rows to one y channel through a STATIC (8, 8) face
 mass matrix per (axis, side); ghost faces are the static (16, 16) jump

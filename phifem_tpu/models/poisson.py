@@ -1,8 +1,8 @@
 """Plain Poisson on the full background box — the pure-multigrid path.
 
 Not a phi-FEM scheme: no level set, no cut cells — every cell is a bulk
-cell, so the whole operator is ONE uniform P1 stencil batch (the fused
-Pallas kernel on TPU) and the V-cycle needs no interface correction.  This
+cell, so the whole operator is ONE uniform P1 stencil batch and the
+V-cycle needs no interface correction.  This
 is the north-star benchmark path (BASELINE.json: sub-second 10M-DoF Poisson
 CG to 1e-10 relative residual) and the scaling probe for the stencil /
 transfer kernels; the phi-FEM machinery (tagging, penalty, ghost) is
@@ -97,7 +97,7 @@ class BoxPoisson:
         # vertex has a full cell ring), and boundary rows are don't-care —
         # they are overwritten by the Dirichlet lift in every solve path.
         # This avoids assembling a second operator and the cold compile of
-        # a dedicated 10M-DoF kernel (~minutes through a remote compiler).
+        # a dedicated 10M-DoF kernel.
         def mass(u, v, d, x, ctx):
             return u["u"].val * v["u"].val
 
@@ -201,8 +201,7 @@ class BoxPoisson:
                 bp = _embed(b2[1:-1, 1:-1] - lift, R, C)
                 xp, rel, it = lattice_cg(mg, bp, tol=tol, maxiter=maxiter)
                 u2 = xp[1 : 1 + R, 1 : 1 + C] + xD
-                # pack the scalars: each separate device_get costs a full
-                # ~26 ms round trip on a remote device
+                # pack the scalars: one device_get for both
                 return u2.reshape(-1), jnp.stack(
                     [rel, it.astype(b2.dtype)]
                 )

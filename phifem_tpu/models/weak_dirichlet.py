@@ -93,7 +93,7 @@ def s1_forms(pen, stab, primal_degree, levelset_degree, phi_h, f_h, u_D, ds):
     rhs_cell_terms = [
         # uniform => eligible for the data-linear vertex-stencil RHS path
         # (assembly._try_stencil_rhs) — the (1,2) bulk region is the whole
-        # domain and per-cell tables OOM TPU HBM at the 10M-cell scale
+        # domain and per-cell tables cost O(ncells) device memory
         (CellTerm(rhs_bulk, (1, 2), degree=qdeg, uniform=True), {"f": f_h}),
         (
             CellTerm(rhs_penalty, (2,), degree=qdeg),

@@ -20,7 +20,7 @@ as P1 does in 2D — so it is dropped at degree 1 and assembled from the
 tabulated second derivatives for degree >= 2, with the matching
 -stab h^2 (f, Δv) consistency RHS.)
 
-TPU-native structure (no generic FEM assembly in 3D): the bulk stiffness
+Structure (no generic FEM assembly in 3D): the bulk stiffness
 is a cell-masked uniform 8-node stencil (64 shifted multiply-adds); ghost
 and Gamma_h face matrices are STATIC per axis orientation (axis-aligned
 faces of a uniform lattice — one (16,16) resp. (8,8) host-side matrix per

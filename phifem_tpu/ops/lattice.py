@@ -15,16 +15,16 @@ gather-form shifted-slice arithmetic on 2D ``(rows, cols)`` arrays — no
 gathers, scatters, region masks, pack/unpack or flat<->lattice reshapes
 anywhere on the hot path.  XLA fuses each stage (Jacobi sweep, residual,
 full-weighting restriction, bilinear prolongation-and-correct) into a few
-memory passes, which is the bandwidth roofline for this computation; the
-float64 outer CG rides the same convolution (v5e emulates f64, but one
-fine matvec per iteration is cheap next to the f32 V-cycle).
+memory passes, which is the bandwidth bound of this computation; the
+float64 outer CG rides the same convolution (one fine matvec per
+iteration next to the f32 V-cycle).
 
 Replaces (for this problem class) the flat-vector V-cycle in
 :mod:`phifem_tpu.mg`, whose per-level pack/unpack + scatter-add transfers
 measured ~22 ms per cycle at 1M DoFs vs ~0.5 ms for the raw stencil
 matvec.  Reference counterpart: the PETSc/MUMPS direct solve
 (``demo/weak-dirichlet/flower/main.py:162-182``) — the reference has no
-multigrid; this is the TPU-native scalable equivalent.
+multigrid; this is the scalable matrix-free equivalent.
 
 Layout: ``(R+2, C+2)`` padded arrays for an ``R x C`` vertex lattice
 (``R = ny+1``); logical node ``(r, c)`` lives at ``[1+r, 1+c]``.  For
@@ -41,6 +41,8 @@ from typing import List, Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+from . import HIGHEST
 
 Array = jnp.ndarray
 
@@ -246,7 +248,11 @@ class LatticeMG:
         lvl = self.levels[k]
         R, C = lvl.R, lvl.C
         if k == len(self.levels) - 1:
-            v = self.coarse_inv.astype(bp.dtype) @ bp[2:R, 2:C].reshape(-1)
+            v = jnp.matmul(
+                self.coarse_inv.astype(bp.dtype),
+                bp[2:R, 2:C].reshape(-1),
+                precision=HIGHEST,
+            )
             return _embed(v.reshape(R - 2, C - 2), R, C)
         xp = self._smooth(jnp.zeros_like(bp), bp, lvl, k, self.pre_smooth)
         r_int = bp[2:R, 2:C] - _conv_interior(xp, self.terms, R, C)
@@ -353,7 +359,7 @@ def _conv_interior_block(xp: Array, terms, W: Array, R: int, C: int) -> Array:
     acc = None
     for t, (a, b, _) in enumerate(terms):
         xs = xp[:, a + 1 : a + R - 1, b + 1 : b + C - 1]
-        part = jnp.einsum("ij,jrc->irc", W[t], xs)
+        part = jnp.einsum("ij,jrc->irc", W[t], xs, precision=HIGHEST)
         acc = part if acc is None else acc + part
     return acc
 
@@ -430,7 +436,7 @@ class LatticeBlockMG:
             r = bp[:, 2:R, 2:C] - _conv_interior_block(
                 xp, self.terms, self._W.astype(xp.dtype), R, C
             )
-            upd = om * jnp.einsum("ij,jrc->irc", Dinv, r)
+            upd = om * jnp.einsum("ij,jrc->irc", Dinv, r, precision=HIGHEST)
             if m is not None:
                 upd = upd * m
             xp = xp.at[:, 2:R, 2:C].add(upd)
@@ -443,7 +449,9 @@ class LatticeBlockMG:
             # flat layout (node-major, comp-minor) to match the dense inv
             v = bp[:, 2:R, 2:C]
             flat = jnp.moveaxis(v, 0, -1).reshape(-1)
-            sol = self.coarse_inv.astype(bp.dtype) @ flat
+            sol = jnp.matmul(
+                self.coarse_inv.astype(bp.dtype), flat, precision=HIGHEST
+            )
             v = jnp.moveaxis(
                 sol.reshape(R - 2, C - 2, self.vsz), -1, 0
             )
@@ -704,7 +712,6 @@ class LatticeVarMG:
         # the S5 preconditioner unrolls ~40 of these convolutions per
         # displacement field across its levels and sweeps, and collapsing
         # each to a single contraction keeps the traced graph ~9x smaller
-        # — load-bearing for the remote TPU compiler (see bench.py S5)
         W = self.Ws[k].astype(xp.dtype)
         xs = jnp.stack(
             [
@@ -714,7 +721,8 @@ class LatticeVarMG:
             ]
         )  # (9, vsz, R-2, C-2)
         return jnp.einsum(
-            "tijrc,tjrc->irc", W.reshape((9,) + W.shape[2:]), xs
+            "tijrc,tjrc->irc", W.reshape((9,) + W.shape[2:]), xs,
+            precision=HIGHEST,
         )
 
     def _mask_int(self, k: int, R: int, C: int):
@@ -729,7 +737,7 @@ class LatticeVarMG:
         m = self._mask_int(k, R, C)
         for _ in range(sweeps):
             r = bp[:, 2:R, 2:C] - self._conv(xp, k, R, C)
-            upd = om * jnp.einsum("ijrc,jrc->irc", Dinv, r)
+            upd = om * jnp.einsum("ijrc,jrc->irc", Dinv, r, precision=HIGHEST)
             if m is not None:
                 upd = upd * m
             xp = xp.at[:, 2:R, 2:C].add(upd)
@@ -741,7 +749,9 @@ class LatticeVarMG:
         if k == len(self.levels) - 1:
             v = bp[:, 2:R, 2:C]
             flat = jnp.moveaxis(v, 0, -1).reshape(-1)
-            sol = self.coarse_inv.astype(bp.dtype) @ flat
+            sol = jnp.matmul(
+                self.coarse_inv.astype(bp.dtype), flat, precision=HIGHEST
+            )
             v = jnp.moveaxis(sol.reshape(R - 2, C - 2, self.vsz), -1, 0)
             out = jnp.zeros_like(bp)
             return out.at[:, 2:R, 2:C].set(v)
@@ -859,7 +869,7 @@ def lattice_cg(
 
     Hand-rolled PCG (rather than ``jax.scipy.sparse.linalg.cg``) so the
     whole solve is one ``lax.while_loop`` with a cheap scalar exit test —
-    on a remote device this keeps the entire Krylov loop on-chip.
+    the entire Krylov loop stays on the device.
     """
     lvl = mg.levels[0]
     R, C = lvl.R, lvl.C
@@ -869,17 +879,18 @@ def lattice_cg(
     def matvec(xp):
         return _embed(_conv_interior(xp, terms, R, C), R, C)
 
-    # ALL dots run with float32 products/reduction: on v5e float64 is
-    # emulated and its REDUCTIONS are pathologically slow (measured
-    # 4.3 ms vs 0.13 ms at 1M entries, ~45 ms at 10M — two f64 norms
-    # alone cost ~90 ms of a 0.29 s solve).  alpha/beta only need ~1e-6
-    # relative accuracy (inexact-coefficient PCG behaves like flexible
-    # CG; the f64 recurrence keeps the residual itself accurate), and
+    # ALL dots run with float32 products/reduction (whether that still
+    # pays on a device with float64 hardware is ROADMAP C3).  alpha/beta
+    # only need ~1e-6 relative accuracy (inexact-coefficient PCG behaves
+    # like flexible CG; the f64 recurrence keeps the residual itself
+    # accurate), and
     # norms (scaling + reported relres) need even less.  The system is
     # normalized by ||b|| so the f32 squares stay in normal range down
     # to relres 1e-12.
     def dot32(a, b):
-        return jnp.vdot(a.astype(jnp.float32), b.astype(jnp.float32)).astype(dt)
+        return jnp.vdot(
+            a.astype(jnp.float32), b.astype(jnp.float32), precision=HIGHEST
+        ).astype(dt)
 
     bnorm = jnp.sqrt(dot32(bp, bp))
     bscale = jnp.maximum(bnorm, jnp.finfo(dt).tiny)

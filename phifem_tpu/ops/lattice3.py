@@ -8,8 +8,7 @@ conditions on the box boundary is EXACTLY a constant 27-point vertex
 stencil on the zero-extended interior, so matvec / Jacobi smoothing /
 residual / full-weighting restriction / trilinear prolongation are all
 shifted-slice arithmetic on 3D ``(depth, rows, cols)`` arrays that XLA
-fuses into bandwidth-bound passes — the same design that reaches the HBM
-roofline in 2D.
+fuses into bandwidth-bound passes — the same design as in 2D.
 
 One real difference from 2D: the P1/Q1 *stiffness* stencil is NOT
 refinement-invariant in 3D (it scales like h, not h^0), and mixed
@@ -32,6 +31,8 @@ from typing import List, Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+from . import HIGHEST
 
 Array = jnp.ndarray
 
@@ -272,7 +273,11 @@ class Lattice3MG:
         lvl = self.levels[k]
         D, R, C = lvl.D, lvl.R, lvl.C
         if k == len(self.levels) - 1:
-            v = self.coarse_inv.astype(bp.dtype) @ bp[2:D, 2:R, 2:C].reshape(-1)
+            v = jnp.matmul(
+                self.coarse_inv.astype(bp.dtype),
+                bp[2:D, 2:R, 2:C].reshape(-1),
+                precision=HIGHEST,
+            )
             return _embed3(v.reshape(D - 2, R - 2, C - 2), D, R, C)
         xp = self._smooth(jnp.zeros_like(bp), bp, lvl, k, self.pre_smooth)
         r_int = bp[2:D, 2:R, 2:C] - _conv_interior3(xp, lvl.terms, D, R, C)
@@ -387,7 +392,7 @@ def _conv_interior3_block(
     acc = None
     for t, (a, b, c) in enumerate(offs):
         xs = xp[:, a + 1 : a + D - 1, b + 1 : b + R - 1, c + 1 : c + C - 1]
-        part = jnp.einsum("ij,jdrc->idrc", W[t], xs)
+        part = jnp.einsum("ij,jdrc->idrc", W[t], xs, precision=HIGHEST)
         acc = part if acc is None else acc + part
     return acc
 
@@ -471,7 +476,7 @@ class Lattice3BlockMG:
             r = bp[:, 2:D, 2:R, 2:C] - _conv_interior3_block(
                 xp, self.offs, W, D, R, C
             )
-            upd = om * jnp.einsum("ij,jdrc->idrc", Dinv, r)
+            upd = om * jnp.einsum("ij,jdrc->idrc", Dinv, r, precision=HIGHEST)
             if m is not None:
                 upd = upd * m
             xp = xp.at[:, 2:D, 2:R, 2:C].add(upd)
@@ -483,7 +488,9 @@ class Lattice3BlockMG:
         if k == len(self.levels) - 1:
             v = bp[:, 2:D, 2:R, 2:C]
             flat = jnp.moveaxis(v, 0, -1).reshape(-1)
-            sol = self.coarse_inv.astype(bp.dtype) @ flat
+            sol = jnp.matmul(
+                self.coarse_inv.astype(bp.dtype), flat, precision=HIGHEST
+            )
             v = jnp.moveaxis(
                 sol.reshape(D - 2, R - 2, C - 2, self.vsz), -1, 0
             )
@@ -596,7 +603,9 @@ def lattice3_cg(
         return _embed3(_conv_interior3(xp, terms, D, R, C), D, R, C)
 
     def dot32(a, b):
-        return jnp.vdot(a.astype(jnp.float32), b.astype(jnp.float32)).astype(dt)
+        return jnp.vdot(
+            a.astype(jnp.float32), b.astype(jnp.float32), precision=HIGHEST
+        ).astype(dt)
 
     bnorm = jnp.sqrt(dot32(bp, bp))
     bscale = jnp.maximum(bnorm, jnp.finfo(dt).tiny)

@@ -3,9 +3,10 @@
 A geometry-uniform term (stiffness, mass) on a structured grid has ONE
 element matrix per cell orientation; its matvec is then a fixed-coefficient
 stencil on the vertex lattice with a per-cell region mask.  Instead of the
-generic gather -> batched matmul -> scatter (HBM gathers), this path is
-pure shifted elementwise arithmetic on (ny+1, nx+1) lattices — bandwidth-
-optimal on the TPU VPU and trivially shardable as a halo-1 stencil.
+generic gather -> batched matmul -> scatter (index gathers from device
+memory), this path is pure shifted elementwise arithmetic on (ny+1, nx+1)
+lattices, which XLA fuses into bandwidth-bound loops; it is trivially
+shardable as a halo-1 stencil.
 
 For an nloc-node cell: y[v_i] += mask_cell * sum_j A[i,j] x[v_j], where
 v_i are lattice offsets of the cell's local nodes, so the whole batch is
@@ -38,8 +39,7 @@ class StencilCellBatch:
 
     ``masks is None`` means the term covers EVERY cell (the pure-Poisson /
     full-box case): the matvec then skips all mask reads — on a 10M-DoF
-    lattice that halves HBM traffic — and lattice-boundary validity is
-    reconstructed from index arithmetic instead.
+    lattice that halves the memory traffic.
     """
 
     grid: Grid
@@ -78,40 +78,9 @@ class StencilCellBatch:
     def _offs(self, o: int):
         return _TRI_OFFS[o] if self.grid.is_simplex else _QUAD_OFFS
 
-    def _use_pallas(self, dtype) -> bool:
-        import os
-
-        import jax
-
-        # OPT-IN only: fetch-synced measurement on v5e shows the XLA
-        # shifted-slice lowering reaches ~87 GDoF/s at 10M DoF (~710 GB/s,
-        # the bandwidth roofline) while the Pallas slab kernel manages
-        # 19 GDoF/s at 1M and 6.5 at 10M (pre-gather materialization +
-        # small-TY DMA pipelining) — XLA's fusion wins this workload
-        if os.environ.get("PHIFEM_PALLAS", "0") != "1":
-            return False
-        # the fused Mosaic kernel needs a real TPU backend and a VPU dtype
-        return jax.default_backend() not in ("cpu",) and dtype in (
-            jnp.float32,
-            jnp.bfloat16,
-        )
-
     def matvec_into(self, x: Dict[str, Array], y: Dict[str, Array]) -> Dict[str, Array]:
         g = self.grid
         ny, nx = g.ny, g.nx
-        if self._use_pallas(x[self.field].dtype):
-            from .pallas_stencil import stencil_matvec_pallas
-
-            yk = stencil_matvec_pallas(
-                g,
-                x[self.field],
-                None
-                if self.masks is None
-                else self.masks.astype(x[self.field].dtype),
-                self.matrices.astype(x[self.field].dtype),
-            )
-            y[self.field] = y[self.field] + yk
-            return y
         X = x[self.field].reshape(ny + 1, nx + 1)
         Y = y[self.field].reshape(ny + 1, nx + 1)
         for o in range(self.matrices.shape[0]):

@@ -1,4 +1,4 @@
-"""SPMD parallelism over TPU meshes (replaces the reference's MPI layer).
+"""SPMD parallelism over device meshes (replaces the reference's MPI layer).
 
 The reference inherits MPI domain decomposition from dolfinx (every mesh on
 ``MPI.COMM_WORLD``, collective assembly/solve; SURVEY.md section 2c) and its

@@ -244,7 +244,7 @@ class HaloOperator:
                 ext[f] = jnp.concatenate([xl, halo], axis=0)  # (m+H, width, *vs)
                 y[f] = jnp.zeros_like(ext[f])
 
-            # uniform scalar-P1 terms: masked lattice stencils (VPU, halo-1)
+            # uniform scalar-P1 terms: masked lattice stencils (halo-1)
             for f, A_all, masks, offs_all in zip(
                 st_fields, st_mats, st_masks, st_offs
             ):

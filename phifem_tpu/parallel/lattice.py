@@ -31,6 +31,7 @@ import numpy as np
 from jax import lax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from ..ops import HIGHEST
 from ..ops.lattice import LatticeMG, _terms, _dense_coarse_inv
 
 Array = jnp.ndarray
@@ -140,7 +141,11 @@ class ShardedLatticeMG:
         if self.tail is not None:
             xp = self.tail._cycle(0, bp)
         else:
-            v = self.coarse_inv.astype(bb.dtype) @ bp[2 : lvl.R, 2 : lvl.C].reshape(-1)
+            v = jnp.matmul(
+                self.coarse_inv.astype(bb.dtype),
+                bp[2 : lvl.R, 2 : lvl.C].reshape(-1),
+                precision=HIGHEST,
+            )
             xp = jnp.zeros_like(bp).at[2 : lvl.R, 2 : lvl.C].set(
                 v.reshape(lvl.R - 2, lvl.C - 2)
             )
@@ -175,7 +180,12 @@ class ShardedLatticeMG:
 
         def pdot32(a, b):
             return lax.psum(
-                jnp.vdot(a.astype(jnp.float32), b.astype(jnp.float32)), AXIS
+                jnp.vdot(
+                    a.astype(jnp.float32),
+                    b.astype(jnp.float32),
+                    precision=HIGHEST,
+                ),
+                AXIS,
             ).astype(dt)
 
         def matvec(x):

@@ -24,6 +24,7 @@ import numpy as np
 from jax import lax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from ..ops import HIGHEST
 from ..ops.lattice3 import (
     Lattice3MG,
     _dense_coarse_inv3,
@@ -156,9 +157,11 @@ class ShardedLattice3MG:
         if self.tail is not None:
             xp = self.tail._cycle(0, bp)
         else:
-            v = self.coarse_inv.astype(bb.dtype) @ bp[
-                2 : lvl.D, 2 : lvl.R, 2 : lvl.C
-            ].reshape(-1)
+            v = jnp.matmul(
+                self.coarse_inv.astype(bb.dtype),
+                bp[2 : lvl.D, 2 : lvl.R, 2 : lvl.C].reshape(-1),
+                precision=HIGHEST,
+            )
             xp = jnp.zeros_like(bp).at[2 : lvl.D, 2 : lvl.R, 2 : lvl.C].set(
                 v.reshape(lvl.D - 2, lvl.R - 2, lvl.C - 2)
             )
@@ -191,7 +194,12 @@ class ShardedLattice3MG:
 
         def pdot32(a, b):
             return lax.psum(
-                jnp.vdot(a.astype(jnp.float32), b.astype(jnp.float32)), AXIS
+                jnp.vdot(
+                    a.astype(jnp.float32),
+                    b.astype(jnp.float32),
+                    precision=HIGHEST,
+                ),
+                AXIS,
             ).astype(dt)
 
         def matvec(x):

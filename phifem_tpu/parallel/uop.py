@@ -303,7 +303,7 @@ def element_sharded_solve(
 
 # ---------------------------------------------------------------------------
 # Memory-scaling variant: PARTITIONED DoF vectors (dolfinx's distributed
-# vectors, VERDICT round 3 item 5).  Each device owns a contiguous block of
+# vectors).  Each device owns a contiguous block of
 # every field's scalar DoFs; elements are assigned to the owner of their
 # first DoF; ghost values cross devices through ONE precomputed
 # lax.all_to_all exchange per matvec (and one reverse exchange for the

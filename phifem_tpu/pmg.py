@@ -3,8 +3,8 @@
 Plain Jacobi-preconditioned Krylov floors on penalized high-degree systems
 (measured: ~1e-6 relative residual at degree 3, ~5.6e-10 on P2 tets), which
 round 3 papered over with a cached HOST SuperLU factorization
-(``solve(method="sparse")``) — a CPU detour in a TPU framework.  The
-TPU-first replacement is the classical p-multigrid / low-order-refined
+(``solve(method="sparse")``) — a host detour on the solve path.  The
+on-device replacement is the classical p-multigrid / low-order-refined
 (LOR) design, already used for the 3D Q2/Q3 bulk in
 ``models/weak_dirichlet3.py`` and generalized here to every backend:
 
@@ -25,8 +25,8 @@ TPU-first replacement is the classical p-multigrid / low-order-refined
 
 Reference parity note: the reference LU-solves every degree (PETSc/MUMPS,
 ``demo/weak-dirichlet/flower/main.py:45``, degrees 1-3 parametrized in
-``tests/test_compute_meshtags.py``); this module is the TPU-native
-equivalent for iterating those systems instead (VERDICT round 3, item 4).
+``tests/test_compute_meshtags.py``); this module iterates those systems
+on the device instead.
 
 Use :meth:`phifem_tpu.models.base.SchemeBase.p_multigrid_preconditioner`,
 with an ``fgmres`` outer solve (the low-level correction may carry a few

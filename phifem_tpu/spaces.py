@@ -6,7 +6,7 @@ machinery the reference consumes (``dfx.fem.functionspace`` +
 ``demo/weak-dirichlet/flower/main.py:50-100``, mixed spaces at
 ``demo/neumann/square/main.py:74-82``).
 
-Design (TPU-first):
+Design:
 
 * A scalar Lagrange space of degree k on the structured grid numbers DoFs
   vertices first, then (k-1) nodes per facet, then interior nodes per cell —

@@ -26,7 +26,7 @@ This module provides that front-end:
 
 Everything runs as vectorized host numpy: imported meshes are a
 preprocessing/parity surface (hundreds-to-thousands of irregular cells),
-not the solve path — the TPU hot path stays on the implicit lattice where
+not the solve path — the device hot path stays on the implicit lattice where
 connectivity is closed-form index arithmetic.
 
 Note on cell numbering parity: dolfinx applies a Gibbs-Poole-Stockmeyer

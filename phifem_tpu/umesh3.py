@@ -21,7 +21,7 @@ and consumes :class:`UMesh3` through the same duck-typed surface:
   barycentric lattice, N=0 -> centroid.
 
 Host vectorized numpy throughout, like ``umesh.py``: imported meshes are a
-preprocessing/parity surface; the TPU hot path stays on the implicit
+preprocessing/parity surface; the device hot path stays on the implicit
 lattice (``grid3.Grid3``).
 """
 

@@ -50,10 +50,52 @@ class SchemeConfig:
         return nx, ny
 
 
+def _scalar(text: str):
+    """One YAML scalar of the parameter files: bool, null, number, or a
+    (possibly quoted) string."""
+    low = text.lower()
+    if low in ("true", "false"):
+        return low == "true"
+    if low in ("null", "~"):
+        return None
+    try:
+        return json.loads(text)  # ints, floats, quoted strings
+    except ValueError:
+        pass
+    try:
+        return float(text)  # YAML floats JSON refuses, e.g. ``1.``
+    except ValueError:
+        return text.strip("'\"")
+
+
+def parse_flat_yaml(text: str) -> dict:
+    """The flat subset of YAML the parameter files use: ``key: value``
+    lines, ``#`` comments, and a block list of ``- [a, b]`` rows under a
+    key with no value (``bbox``).  Lets :func:`load_config` run where
+    PyYAML is not installed."""
+    out: dict = {}
+    key = None
+    for raw in text.splitlines():
+        line = raw.split("#", 1)[0].rstrip()
+        if not line.strip():
+            continue
+        item = line.lstrip()
+        if item.startswith("- "):
+            out[key].append(json.loads(item[2:]))
+            continue
+        key, sep, val = line.partition(":")
+        if not sep:
+            raise ValueError(f"unsupported parameter line: {raw!r}")
+        key, val = key.strip(), val.strip()
+        out[key] = _scalar(val) if val else []
+    return out
+
+
 def load_config(path: str) -> SchemeConfig:
     """Load YAML (or JSON) into a SchemeConfig; accepts the reference's S5
     YAML schema (bbox given column-wise as [[x0,x1],[y0,y1]], see
-    ``main.py:107-109`` where it is transposed)."""
+    ``main.py:107-109`` where it is transposed).  Without PyYAML the flat
+    schema of those files is parsed by :func:`parse_flat_yaml`."""
     with open(path) as f:
         text = f.read()
     try:
@@ -61,7 +103,10 @@ def load_config(path: str) -> SchemeConfig:
 
         raw = yaml.safe_load(text)
     except ImportError:
-        raw = json.loads(text)
+        try:
+            raw = json.loads(text)
+        except ValueError:
+            raw = parse_flat_yaml(text)
 
     known = {f.name for f in dataclasses.fields(SchemeConfig)}
     kwargs = {k: v for k, v in raw.items() if k in known}

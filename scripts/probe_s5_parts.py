@@ -1,6 +1,7 @@
 """Component timing of the on-device S5 iteration: taps matvec alone,
-preconditioner alone, band-free preconditioner — fetch-synced fori loops
-(the bench_stencil methodology).  Finds where the ~620 ms/iteration goes."""
+preconditioner alone, band-free preconditioner — REP applications in one
+jitted fori_loop each, synced with ``jax.block_until_ready``.  Splits one
+S5 iteration into its layers."""
 
 import importlib.util
 import os
@@ -11,7 +12,6 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
-import numpy as np  # noqa: E402
 
 import phifem_tpu as pf  # noqa: E402
 from phifem_tpu.models import InterfaceElasticity  # noqa: E402
@@ -26,10 +26,10 @@ def log(m):
 
 def timed(name, fn, x):
     t0 = time.perf_counter()
-    float(np.asarray(fn(x)))
+    jax.block_until_ready(fn(x))
     t_c = time.perf_counter() - t0
     t0 = time.perf_counter()
-    float(np.asarray(fn(x)))
+    jax.block_until_ready(fn(x))
     dt = time.perf_counter() - t0
     log(f"{name}: compile+run {t_c:.1f}s, warm {dt/REP*1e3:.2f} ms/apply")
 
@@ -52,7 +52,7 @@ def main():
     )
     s.setup(D.levelset, D.source_term, D.exact_solution)
     s.assemble()
-    np.asarray(s.b["u_in"])
+    jax.block_until_ready(s.b["u_in"])
     log("setup done")
 
     matvec, _, _ = masked_operator(s.op, s.bcs)

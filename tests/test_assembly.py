@@ -203,8 +203,8 @@ def test_sparse_lu_phifem_system():
 def test_stencil_rhs_matches_generic():
     """The data-linear vertex-stencil RHS path (assembly._try_stencil_rhs)
     must reproduce the generic gathered assembly exactly — same local
-    matrices, different evaluation order (regression for the TPU
-    minor-dim-padding OOM fix at n=3200-class grids)."""
+    matrices, different evaluation order (the stencil path keeps per-cell
+    tables off the device at n=3200-class grids)."""
     import phifem_tpu as pf
     from phifem_tpu.assembly import CellTerm, System, assemble_vector
     from phifem_tpu.spaces import Space, interpolate
@@ -253,6 +253,43 @@ def test_stencil_rhs_matches_generic():
         )
         dsq = np.abs(np.asarray(b_s["u"]) - np.asarray(b_g["u"])).max()
         assert dsq < 1e-13 * np.abs(np.asarray(b_g["u"])).max(), (ct, dsq)
+
+
+@pytest.mark.parametrize("cell_type", ["triangle", "quadrilateral"])
+def test_maskless_stencil_matches_masked(cell_type):
+    """A term covering every cell builds ``masks=None``; that maskless
+    stencil must match the same matrices with explicit all-ones masks and
+    the generic gathered batch, lattice-boundary rows and columns
+    included."""
+    from phifem_tpu.ops.stencil import StencilCellBatch
+
+    g = pf.Grid(20, 12, ((-1.0, -1.0), (1.0, 1.0)), cell_type)
+    sp = pf.Space.lagrange(g, 1)
+    sys_ = System({"u": sp})
+
+    def bulk(u, v, d, x, ctx):
+        return jnp.dot(u["u"].grad, v["u"].grad) + u["u"].val * v["u"].val
+
+    op = assemble_operator(
+        sys_, g, cell_terms=[(CellTerm(bulk, None, degree=2, uniform=True), {})]
+    )
+    batch = op.batches[0]
+    assert isinstance(batch, StencilCellBatch)
+    assert batch.masks is None
+
+    x = jnp.asarray(np.random.default_rng(7).normal(size=sp.dof_shape))
+    y = np.asarray(op.matvec({"u": x})["u"])
+    no = 2 if g.is_simplex else 1
+    masked = StencilCellBatch(g, "u", batch.matrices, jnp.ones((no, g.ny, g.nx)))
+    y_masked = masked.matvec_into({"u": x}, {"u": jnp.zeros_like(x)})["u"]
+    generic = assemble_operator(
+        sys_, g, cell_terms=[(CellTerm(bulk, None, degree=2), {})]
+    )
+    assert not isinstance(generic.batches[0], StencilCellBatch)
+    y_generic = generic.matvec({"u": x})["u"]
+    scale = np.abs(y).max()
+    assert np.abs(y - np.asarray(y_masked)).max() < 1e-13 * scale
+    assert np.abs(y - np.asarray(y_generic)).max() < 1e-13 * scale
 
 
 def test_sparse_solve_bordered_singular():

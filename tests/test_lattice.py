@@ -282,7 +282,7 @@ def test_scheme_lattice_preconditioner_iteration_scaling():
     """Outer BiCGStab iteration ceilings at two sizes spanning BOTH
     interface-solve variants (n=160 -> dense inverse, n=320 -> Schwarz
     band): a regression in the RAS/inner-Krylov interface solve would
-    otherwise surface only as silent slowdown (VERDICT r2 weak #8).
+    otherwise surface only as silent slowdown.
     Measured: 12 and 17 iterations."""
     from phifem_tpu.models import WeakDirichletPoisson
 

@@ -142,7 +142,7 @@ def test_sharded_lattice_mg_matches_single_device():
 def test_sharded_solve_p2():
     """Degree-2 S1 through the GSPMD-constraint fallback (halo.py is
     P1/DG0-only): the advertised P2 capability needs a multi-device
-    path too (VERDICT r2 weak #5)."""
+    path too."""
     phi = lambda x: x[..., 0] ** 2 + x[..., 1] ** 2 - 0.49
     uex = lambda x: jnp.cos(x[..., 0]) * jnp.sin(x[..., 1])
     f = lambda x: 2.0 * uex(x)

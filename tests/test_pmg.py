@@ -1,9 +1,8 @@
 """p-multigrid (phifem_tpu.pmg): transfers + on-device degree>=2 solves.
 
 The reference LU-solves every degree (PETSc/MUMPS,
-``demo/weak-dirichlet/flower/main.py:45``); p-MG is the TPU-native
-replacement that retires the host-SuperLU detour for degree>=2 systems
-(VERDICT round 3, item 4)."""
+``demo/weak-dirichlet/flower/main.py:45``); p-MG is the on-device
+replacement that retires the host-SuperLU detour for degree>=2 systems."""
 
 import jax
 import jax.numpy as jnp

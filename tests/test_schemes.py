@@ -246,8 +246,8 @@ def test_weak_dirichlet_p2_convergence():
 
 
 def test_weak_dirichlet_p3_convergence():
-    """P3 end-to-end (VERDICT r2: degree-3 support must be exercised, not
-    just tabulated): S1 with primal_degree=3 converges at O(h^4) in L2."""
+    """P3 end-to-end (degree-3 support must be exercised, not just
+    tabulated): S1 with primal_degree=3 converges at O(h^4) in L2."""
     import jax
 
     phi = lambda x: x[..., 0] ** 2 + x[..., 1] ** 2 - 1.0
@@ -356,8 +356,8 @@ def test_interface_elasticity_sparse_lu():
 
 
 def test_neumann_q2_convergence():
-    """Q2 on the quadrilateral grid, end-to-end (VERDICT r2: degree 2-3
-    elements were constructed but never exercised beyond P2-triangle).
+    """Q2 on the quadrilateral grid, end-to-end (degree 2-3 elements
+    exercised beyond P2-triangle).
     Matches the reference's degree parametrization
     (tests/test_compute_meshtags.py, degrees 1-3) and S3's degree-2
     levelset (demo/neumann/square/main.py:49-51)."""
@@ -386,8 +386,7 @@ def test_interface_elasticity_iteration_scaling():
     n=32/64/128, round 3); with it the growth factor must stay <= 1.5
     small on this doubling (10/13 -> 16/20 measured — BiCGStab iteration
     counts wobble ~20% with summation order, so the pin is on absolute
-    counts; full record through n=256 in docs/s5_preconditioner.md).
-    VERDICT round-3 item 3."""
+    counts; full record through n=256 in docs/s5_preconditioner.md)."""
     import importlib.util
     import os
 

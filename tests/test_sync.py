@@ -1,9 +1,9 @@
 """Deferred host synchronization: lazy tag fetch, ``solve(sync=False)``
 and the packed ``fetch_all`` round trip.
 
-On a remote TPU every ``jax.device_get`` costs a full dispatch+fetch round
-trip, so the warm tag -> reassemble -> solve iteration synchronizes ONCE
-(`bench.py` pipeline).  These tests pin the host-visible semantics: lazy
+Every ``jax.device_get`` is a host synchronization, so the warm tag ->
+reassemble -> solve iteration synchronizes ONCE (`bench.py` pipeline).
+These tests pin the host-visible semantics: lazy
 results must be value-identical to eager ones, and ``fetch_all`` must
 materialize everything it is handed.  (The reference never faces this —
 dolfinx/PETSc values are host-resident by construction.)

@@ -89,6 +89,31 @@ def test_load_reference_s5_yaml():
     assert cfg.resolve_resolution() == (15, 15)
 
 
+def test_load_s5_yaml_without_pyyaml(monkeypatch):
+    """The S5 parameter files load to the same config when PyYAML is not
+    installed."""
+    import sys
+
+    paths = [
+        f"demo/interface-elasticity/{name}.yaml"
+        for name in ("param1", "param1_l7", "param_quick")
+    ]
+    expected = {
+        "param1": (0.2, 5),
+        "param1_l7": (0.2, 7),
+        "param_quick": (0.25, 2),
+    }
+    monkeypatch.setitem(sys.modules, "yaml", None)  # import yaml -> ImportError
+    for path in paths:
+        cfg = load_config(path)
+        name = path.rsplit("/", 1)[1][: -len(".yaml")]
+        assert (cfg.initial_mesh_size, cfg.num_iterations) == expected[name]
+        assert cfg.mode == "bg"
+        assert cfg.cell_type == "triangle"
+        assert cfg.stabilization_coefficient == 1.0
+        assert cfg.bbox == ((-1.5, -1.5), (1.5, 1.5))
+
+
 def test_detection_vector_matches_reference_semantics():
     g = pf.Grid(10, 10, ((-1.5, -1.5), (1.5, 1.5)), "quadrilateral")
     phi = lambda x: x[..., 0] + 0.35
